@@ -1,8 +1,8 @@
-"""light_loam_tpu — a TPU-native LiDAR odometry & mapping (SLAM) engine.
+"""light_loam_tpu — a LiDAR odometry & mapping (SLAM) engine in JAX.
 
-A brand-new JAX/XLA/Pallas implementation of the Light-LOAM pipeline
-(RA-L 2024, arXiv 2310.04162; reference C++/ROS implementation surveyed in
-/root/repo/SURVEY.md):
+A JAX/XLA/Pallas implementation of the Light-LOAM pipeline (RA-L 2024,
+arXiv 2310.04162; reference C++/ROS implementation surveyed in
+SURVEY.md), run on an NVIDIA GPU:
 
   * curvature-based edge/planar feature extraction over ring-organized
     point clouds (reference: src/scanRegistration.cpp),
@@ -19,25 +19,21 @@ runtime.  Multi-device scaling uses jax.sharding Meshes (see
 light_loam_tpu.parallel).
 """
 
-import jax as _jax
-
-# Geometry demands real f32 matmuls: TPU XLA otherwise lowers f32 matmuls
-# to bf16×bf16+f32 accumulation, and with world coordinates up to hundreds
-# of metres the single-pass bf16 rounding (~0.4% rel, tens of m² on the
-# 1e4 m² cross terms) exceeds correspondence gates, plane-fit normal
-# equations, and compatibility length scales (measured: identical programs
-# track on CPU and diverge on TPU at default precision).  The
-# distance-critical kernels also pin their precision explicitly; this
-# default protects every remaining einsum (Jacobian accumulation, plane
-# fits, Schur reduction).
-#
-# LLT_MATMUL_PRECISION selects the tier (default "highest" = 6-pass bf16,
-# exact-f32-equivalent).  "high" (3-pass, ~2.4e-7 rel ≈ 2.4e-3 m² on the
-# cross terms — still two orders under the tightest 1 m² gate) doubles the
-# MXU ceiling of every distance/vote matmul; see BENCH notes for the
-# measured accuracy/thoughput trade.
 import os as _os
 
+import jax as _jax
+
+# Geometry demands real f32 matmuls.  World coordinates reach ~100 m, so
+# the cross terms of the distance matmuls (|q|²+|r|²-2q·r) are ~1e4 m²;
+# any reduced-precision product rounds them by more than the 1 m² 5-NN
+# gate and the vote's 1 m length scale, and long trajectories diverge.
+# LLT_MATMUL_PRECISION sets the tier for every matmul of the package:
+#
+#   highest (default) — exact f32 on the GPU and the CPU.  The only tier
+#                       that is safe for the gates.
+#   high, default     — both mean TF32 on an H100 (10 mantissa bits,
+#                       ~5e-4 relative: ~5 m² on the 1e4 m² cross terms).
+#                       Unsafe for the gates; kept for experiments only.
 _PRECISION = _os.environ.get("LLT_MATMUL_PRECISION", "highest")
 if _PRECISION not in ("highest", "high", "default"):
     raise ValueError(
@@ -48,8 +44,7 @@ _jax.config.update("jax_default_matmul_precision", _PRECISION)
 
 def dist_precision() -> "_jax.lax.Precision":
     """Precision for the distance-critical matmuls (kNN tiles, vote
-    compatibility).  They follow the package tier rather than hard-coding
-    HIGHEST so LLT_MATMUL_PRECISION=high governs the whole compute path."""
+    compatibility): the package tier of LLT_MATMUL_PRECISION."""
     return {
         "highest": _jax.lax.Precision.HIGHEST,
         "high": _jax.lax.Precision.HIGH,

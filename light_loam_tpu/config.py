@@ -81,10 +81,9 @@ class ScanConfig:
     # is a 1-D space curve, so same-voxel points are almost always
     # consecutive); ring revisits of a voxel yield a duplicate centroid
     # per visit (a few % denser cloud) — geometry-equivalent for the
-    # downstream plane fits, and all dense/gather ops on TPU where the
-    # exact mode's vmapped sort+scatter costs ~10 ms/frame
-    # (PROFILE_r04.json feat.lessflat_voxel_rings).  Default stays
-    # "exact" pending an on-device win + accuracy-gate pass.
+    # downstream plane fits, and all dense/gather ops instead of the
+    # exact mode's vmapped sort+scatter.  Default stays "exact" pending
+    # an on-device win + accuracy-gate pass.
     lessflat_mode: str = "exact"
 
     # Occluded-point / parallel-beam suppression (original LOAM §V-A;
@@ -139,10 +138,9 @@ class OdometryConfig:
     nearby_scan: float = 2.5
     # Solve schedule.  The reference runs 3 outer re-association passes ×
     # Ceres max 4 inner iterations (laserOdometry.cpp:439,822) — a CPU
-    # real-time compromise.  On TPU the solve is >40× under budget, so the
-    # default schedule is deeper: measured on synthetic highway-speed
-    # frames (1.6 m/frame), 6×8 cuts per-frame translation error from
-    # 0.18±0.24 m to 0.02±0.02 m at negligible wall-clock cost.
+    # real-time compromise.  The default schedule here is deeper:
+    # measured on synthetic highway-speed frames (1.6 m/frame), 6×8 cuts
+    # per-frame translation error from 0.18±0.24 m to 0.02±0.02 m.
     outer_iterations: int = 6
     inner_iterations: int = 8
     # Huber loss scale (laserOdometry.cpp:475).
@@ -159,10 +157,6 @@ class OdometryConfig:
     # scalar edge factors (LidarEdgeFactor_modify) like the latent path.
     plane_vote_mode: str = "simple"
     corner_vote_mode: str = "off"
-    # Vote compatibility kernel backend: "auto" = fused Pallas kernel on
-    # TPU, XLA elsewhere.  The batched (vmapped) pipeline forces "xla" —
-    # vmap of pallas_call lowers poorly.
-    vote_backend: str = "auto"
     # Graph-vote "simple" parameters (laserOdometry.cpp:179-188,260-285).
     corner_vote_regions: int = 5
     plane_vote_regions: int = 10
@@ -180,16 +174,16 @@ class OdometryConfig:
     # (laserOdometry.cpp:23) so s == 1 always.
     distortion: bool = False
     # Surf correspondence kernel.  "grid": single-pass search exploiting
-    # the less-flat cloud's ring-slotted layout (half the matmul cost,
+    # the less-flat cloud's ring-slotted layout (half the distance work,
     # exact same semantics — ops/knn.py surf_correspondences_grid).
-    # "tiled": the layout-agnostic two-pass search.  "auto": tiled on
-    # TPU, grid elsewhere — measured per-op on-device (PROFILE_r04.json,
-    # slope-method device times): grid 2.60 ms vs tiled 0.93 ms per
-    # outer iteration.  The grid variant's halved matmul cost is the
-    # wrong trade on TPU, where the distance matmuls are nearly free and
-    # its (Q, R) dynamic_update_slice carries through the ring-tile scan
-    # dominate instead.
-    surf_knn: str = "auto"
+    # "tiled": the layout-agnostic two-pass search over a live-prefix
+    # compacted cloud.
+    surf_knn: str = "grid"
+
+    def __post_init__(self):
+        if self.surf_knn not in ("grid", "tiled"):
+            raise ValueError(
+                f"surf_knn must be 'grid' or 'tiled', got {self.surf_knn!r}")
 
 
 @dataclass(frozen=True)
@@ -253,7 +247,6 @@ class MappingConfig:
     vote_low_vote_count: int = 50
     vote_low_vote_weight: float = 5.0
     vote_high_vote_weight: float = 1.0
-    vote_backend: str = "auto"
     # The latent path only *selects* factors (LidarPlaneNormFactor takes no
     # weight); True additionally applies the vote weight/score to the
     # surviving factors — the [DEV] extension matching the odometry stage.
@@ -272,14 +265,11 @@ class MappingConfig:
     # k-NN map tile (streamed over map points to bound memory).
     knn_tile: int = 8192
     # 5-NN search backend for the scan-to-map hot loop: "xla" streams
-    # (Q, tile) distance blocks + top_k merges through HBM
+    # (Q, tile) distance blocks + top_k merges through device memory
     # (ops/knn.knn_tiled); "pallas" fuses distance + running top-k in
-    # VMEM (ops/pallas_knn.py); "auto" = pallas on TPU, xla elsewhere
-    # (interpret-mode pallas on CPU is test-only).  Measured on-device
-    # 2026-08-18 (TPU v5e, flagship, bracketed same-process A/B):
-    # pallas 0.075 ms vs xla 0.079 ms median mapping_step — pallas never
-    # slower in any interleaved round.  Semantics are equivalence-gated
-    # either way (tests/test_pallas_knn.py).
+    # registers (ops/pallas_knn.py, GPU only); "auto" = pallas on the
+    # GPU, xla elsewhere.  Semantics are equivalence-gated either way
+    # (tests/test_pallas_knn.py).
     knn_backend: str = "auto"
     # Map-store merge strategy.  "sorted" keeps the store lex-sorted by
     # voxel key as an invariant and inserts each frame's ~2k/8k stack
@@ -287,10 +277,16 @@ class MappingConfig:
     # O(new·log N + N) dense passes; the full store re-sort runs only on
     # grid-recenter frames (where rows are evicted) under lax.cond.
     # "resort" re-sorts the whole store every frame (the original
-    # behaviour; PROFILE_r04.json: 27 ms/frame of the ~129 ms frame).
+    # behaviour).
     # Results are equal up to float association in merged-voxel
     # centroids (tests/test_sorted_store.py).
     map_store_mode: str = "sorted"
+
+    def __post_init__(self):
+        if self.knn_backend not in ("auto", "xla", "pallas"):
+            raise ValueError(
+                f"knn_backend must be 'auto', 'xla' or 'pallas', "
+                f"got {self.knn_backend!r}")
 
     @property
     def n_cells(self) -> int:

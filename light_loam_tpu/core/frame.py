@@ -1,6 +1,6 @@
 """Pytree containers for point clouds and per-frame feature sets.
 
-TPU-native layout: every container is a fixed-capacity padded array plus a
+Accelerator layout: every container is a fixed-capacity padded array plus a
 validity mask (static shapes under jit).  The reference's ``intensity``
 channel trick — ``intensity = scanID + scanPeriod * relTime``
 (src/scanRegistration.cpp:208) — is carried as the ``rel`` channel, since

@@ -99,10 +99,6 @@ def main():
     """
     import sys
 
-    from light_loam_tpu.utils.platform import honor_jax_platforms_env
-
-    honor_jax_platforms_env()
-
     if len(sys.argv) != 3:
         print(__doc__ or "", file=sys.stderr)
         print("usage: python -m light_loam_tpu.io.evaluation EST.txt GT.txt",

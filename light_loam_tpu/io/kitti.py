@@ -187,10 +187,6 @@ def main():
     import argparse
     import time as _time
 
-    from light_loam_tpu.utils.platform import honor_jax_platforms_env
-
-    honor_jax_platforms_env()
-
     ap = argparse.ArgumentParser(description="KITTI sequence replay")
     ap.add_argument("--dataset", required=True)
     ap.add_argument("--sequence", default="04")

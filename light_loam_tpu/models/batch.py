@@ -1,11 +1,11 @@
-"""Batched multi-sequence SLAM — TPU-native throughput scaling.
+"""Batched multi-sequence SLAM — throughput scaling on one device.
 
 The reference is a single-stream real-time system; batch evaluation over
-KITTI sequences 00-10 means running it eleven times.  On TPU the whole
+KITTI sequences 00-10 means running it eleven times.  Here the whole
 frame step (features → odometry → mapping) is a pure function of
 fixed-shape state, so B independent sequences vmap into one program whose
 kernels process B frames at once — amortizing kernel-launch latency and
-filling the MXU that a single 100k-point frame leaves mostly idle.
+filling a device that a single 100k-point frame leaves mostly idle.
 
 Semantics are EXACTLY the single-stream pipeline per lane (vmap of the
 same jitted functions); lanes never interact.
@@ -43,41 +43,6 @@ def init_batch_state(cfg: PipelineConfig, batch: int) -> BatchState:
     return BatchState(odometry=stack(odo), mapping=stack(mp))
 
 
-def _resolve_batch_cfg(cfg: PipelineConfig) -> PipelineConfig:
-    """Resolve "auto" vote backends (and the LLT_BATCH_VOTE_BACKEND A/B
-    override) OUTSIDE the traced body.  jit caches on cfg, so baking the
-    choice into cfg keys the compilation cache correctly — an env read
-    inside the trace is captured at first compile and a later flip of
-    the knob in the same process would silently reuse the old backend.
-
-    The pallas vote carries a custom vmap rule (batch folded into the
-    kernel grid, ops/pallas_vote.py), so both backends vmap cleanly.
-    "auto" resolves to XLA — measured on-device 2026-08-18 (TPU v5e,
-    B=8 flagship): XLA 41.0k frames/s aggregate vs pallas 22.8k; the
-    XLA vote fuses into the surrounding batched program while the
-    pallas launch is a separate program boundary per step."""
-    import dataclasses
-    import os
-
-    forced = os.environ.get("LLT_BATCH_VOTE_BACKEND", "").strip()
-
-    def pick(backend: str) -> str:
-        if forced:
-            return forced
-        return "xla" if backend == "auto" else backend
-
-    odo_b = pick(cfg.odometry.vote_backend)
-    map_b = pick(cfg.mapping.vote_backend)
-    if (odo_b, map_b) == (cfg.odometry.vote_backend,
-                          cfg.mapping.vote_backend):
-        return cfg
-    return dataclasses.replace(
-        cfg,
-        odometry=dataclasses.replace(cfg.odometry, vote_backend=odo_b),
-        mapping=dataclasses.replace(cfg.mapping, vote_backend=map_b),
-    )
-
-
 def _batched_body(
     state: BatchState,
     xyz: jnp.ndarray,   # (B, max_points, 3)
@@ -85,8 +50,7 @@ def _batched_body(
     cfg: PipelineConfig,
 ) -> Tuple[BatchState, OdometryOutput, MappingOutput]:
     """One SLAM frame for B independent sequences (traced body shared by
-    the per-frame and chunked entry points).  ``cfg`` must already carry
-    resolved vote backends (see _resolve_batch_cfg)."""
+    the per-frame and chunked entry points)."""
 
     def one(odo_state, map_state, xyz, mask):
         feats = extract_features(xyz, mask, cfg.scan)
@@ -109,20 +73,13 @@ def _batched_body(
     return BatchState(odometry=odo_state, mapping=map_state), odo, mout
 
 
-_batched_frame_step_jit = partial(jax.jit, static_argnames=("cfg",))(
+batched_frame_step = partial(jax.jit, static_argnames=("cfg",))(
     _batched_body
 )
 
 
-def batched_frame_step(state, xyz, mask, cfg: PipelineConfig):
-    """Jitted per-frame entry point; resolves the vote-backend knobs
-    eagerly so the env override keys the jit cache."""
-    return _batched_frame_step_jit(state, xyz, mask,
-                                   cfg=_resolve_batch_cfg(cfg))
-
-
 @partial(jax.jit, static_argnames=("cfg",))
-def _batched_chunk_step_jit(
+def batched_chunk_step(
     state: BatchState,
     xyz: jnp.ndarray,   # (K, B, max_points, 3)
     mask: jnp.ndarray,  # (K, B, max_points)
@@ -131,7 +88,7 @@ def _batched_chunk_step_jit(
                              jnp.ndarray, jnp.ndarray]]:
     """K frames × B sequences per dispatch — lax.scan of the batched
     body, composing the two throughput axes (models/fused.py's chunk
-    amortizes dispatch 1/K; the vmap fills the MXU with B lanes).  The
+    amortizes dispatch 1/K; the vmap fills the device with B lanes).  The
     outputs are the per-frame poses only, (K, B, …) each:
     (odom_q, odom_t, map_q, map_t) — stacking the full cloud outputs
     over K would hold K copies of working-set-sized arrays for no
@@ -144,10 +101,3 @@ def _batched_chunk_step_jit(
 
     state, outs = jax.lax.scan(body, state, (xyz, mask))
     return state, outs
-
-
-def batched_chunk_step(state, xyz, mask, cfg: PipelineConfig):
-    """Jitted chunked entry point; resolves the vote-backend knobs
-    eagerly so the env override keys the jit cache."""
-    return _batched_chunk_step_jit(state, xyz, mask,
-                                   cfg=_resolve_batch_cfg(cfg))

@@ -2,11 +2,10 @@
 
 The staged pipeline (models/pipeline.py) dispatches three programs per
 frame (features → odometry → mapping) with a host round-trip between
-odometry and mapping for divergence containment.  On a single chip the
-per-stage device times are dominated by the dispatch floor (see
-README "Performance"), so fusing the whole frame into one jitted
-program removes two program launches and the mid-frame host sync —
-the single-stream analog of models/batch.py's batched program.
+odometry and mapping for divergence containment.  Fusing the whole
+frame into one jitted program removes two program launches and the
+mid-frame host sync — the single-stream analog of models/batch.py's
+batched program.
 
 Semantics match the staged path exactly, including the divergence
 containment that pipeline.py performs on the host

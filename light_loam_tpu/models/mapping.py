@@ -1,7 +1,7 @@
 """Scan-to-map back end with the sliding voxel-cube world map
 (reference: src/laserMapping.cpp).
 
-TPU-native re-design of the reference's 21×21×11 array of per-cell point
+Static-shape re-design of the reference's 21×21×11 array of per-cell point
 clouds (ref:45-75): the map lives as two flat fixed-capacity point stores
 (corner/surf), each point tagged with its linear cube-cell index.  The
 pointer-shuffle recentering (six while-loops, ref:1595-1779) becomes pure
@@ -34,7 +34,7 @@ import jax.numpy as jnp
 from light_loam_tpu.config import MappingConfig
 from light_loam_tpu.core import quaternion as quat
 from light_loam_tpu.core.frame import PointCloud
-from light_loam_tpu.ops import graphvote, knn
+from light_loam_tpu.ops import graphvote, knn, pallas_knn
 from light_loam_tpu.ops.eig3 import eigh3x3
 from light_loam_tpu.ops.voxel import compact_rows, voxel_downsample
 from light_loam_tpu.solver import (
@@ -427,24 +427,19 @@ def mapping_step(
     # 4. scan-to-map refinement (2 outer × 4 LM).  Both k-NN operands are
     # live-prefix buffers (_gather_local / voxel_downsample compact live
     # entries to the front), so the search cost scales with CONTENT via
-    # count-aware tile skipping, not with the static capacities
-    # (PROFILE_r04.json: the capacity-bound surf 5-NN was 11.7 ms per
-    # outer iteration over 10.6k live points in a 65k buffer).
+    # count-aware tile skipping, not with the static capacities (~10k
+    # live points in the 65,536-point local surf buffer).
     def neighbours(stack_xyz, n_stack, local_xyz, local_mask, n_local,
                    q_w, t_w):
         p_sel = quat.quat_rotate(q_w[None, :], stack_xyz) + t_w[None, :]
         backend = cfg.knn_backend
         if backend == "auto":
-            # same resolution rule as ops/graphvote.py: fused Pallas
-            # kernel on TPU (measured faster, config.py note), XLA
-            # elsewhere (pallas would run in interpret mode)
-            backend = "pallas" if jax.default_backend() == "tpu" else "xla"
+            # the fused kernel compiles for the GPU only (config.py note)
+            backend = "pallas" if jax.default_backend() == "gpu" else "xla"
         if backend == "pallas":
-            from light_loam_tpu.ops.pallas_knn import knn_pallas
-
-            d, idx = knn_pallas(p_sel, local_xyz, local_mask, k=cfg.knn_k,
-                                interpret=jax.default_backend() != "tpu",
-                                query_count=n_stack, ref_count=n_local)
+            d, idx = pallas_knn.knn_pallas(
+                p_sel, local_xyz, local_mask, k=cfg.knn_k,
+                query_count=n_stack, ref_count=n_local)
         else:
             d, idx = knn.knn_tiled(p_sel, local_xyz, local_mask,
                                    k=cfg.knn_k, tile=cfg.knn_tile,
@@ -491,7 +486,6 @@ def mapping_step(
                 low_vote_count=cfg.vote_low_vote_count,
                 low_vote_weight=cfg.vote_low_vote_weight,
                 high_vote_weight=cfg.vote_high_vote_weight,
-                backend=cfg.vote_backend,
             )
             pf = pf._replace(
                 mask=pf.mask & jnp.where(use_vote, sel, True),

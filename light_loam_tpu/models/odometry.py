@@ -52,7 +52,6 @@ def _run_vote(mode: str, src, tgt, valid, n_regions, chunk_cap, cfg):
         low_vote_count=cfg.vote_low_vote_count,
         low_vote_weight=cfg.vote_low_vote_weight,
         high_vote_weight=cfg.vote_high_vote_weight,
-        backend=cfg.vote_backend,
     )
 
 
@@ -126,12 +125,6 @@ def odometry_step(
     chunk_cap = n_flat_cap // cfg.plane_vote_regions + cfg.plane_vote_regions
 
     surf_knn = cfg.surf_knn
-    if surf_knn == "auto":
-        # measured per-op on-device (PROFILE_r04.json): tiled 0.93 ms
-        # vs grid 2.60 ms per outer iteration on TPU (stage-level
-        # confirmation r05: grid 10.24 vs tiled 11.30 fps); grid's
-        # halved matmul cost wins only where matmuls are the bottleneck
-        surf_knn = "tiled" if jax.default_backend() == "tpu" else "grid"
     # tiled mode: the stored surf_last is live-prefix compacted at
     # hand-off (below), so the tile sweeps skip dead tiles.  ~40 % live
     # at flagship capacity → both correspondence passes drop ~half
@@ -146,9 +139,8 @@ def odometry_step(
     # Python unroll: the body (kNN tiles + vote + LM solve) is by far the
     # largest subgraph in the program, and unrolling it outer_iterations
     # times made XLA compile that graph 6x over for zero runtime benefit
-    # (iterations are strictly sequential).  Measured on the remote-TPU
-    # harness this cuts whole-pipeline compile time severalfold; runtime
-    # semantics are identical (static trip count, same body).
+    # (iterations are strictly sequential); runtime semantics are
+    # identical (static trip count, same body).
     def _outer(carry, _):
         q, t, corner_valid, plane_valid = carry
         sharp_sel, s_sharp = _transform_to_start(

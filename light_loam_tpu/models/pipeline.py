@@ -583,10 +583,10 @@ def run_kitti(
     return pipe
 
 
-def main():
-    from light_loam_tpu.utils.platform import honor_jax_platforms_env
+def main(argv=None):
+    from light_loam_tpu.utils.compile_cache import enable_compile_cache
 
-    honor_jax_platforms_env()
+    enable_compile_cache()
     ap = argparse.ArgumentParser(description="light_loam_tpu SLAM pipeline")
     ap.add_argument("--dataset", help="KITTI dataset folder (kittiHelper layout)")
     ap.add_argument("--sequence", default="04")
@@ -613,7 +613,7 @@ def main():
                          "dispatch (lax.scan in one program, "
                          "models/fused.run_chunked) — fastest whole-"
                          "sequence replay; every frame maps")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     t0 = time.time()
     gt = None
@@ -651,8 +651,10 @@ def main():
             viz_prefix=args.viz, viz_every=args.viz_every,
         )
         gt = truth
-        err = np.linalg.norm(results[-1].odom_t - truth[-1])
-        print(f"frames: {len(results)}  final pose error: {err:.3f} m")
+        err = np.linalg.norm(pipe.mapped_positions()[-1] - truth[-1])
+        err_odo = np.linalg.norm(results[-1].odom_t - truth[-1])
+        print(f"frames: {len(results)}  final mapped pose error: "
+              f"{err:.3f} m (odometry alone: {err_odo:.3f} m)")
     else:
         out = run_kitti(args.dataset, args.sequence, args.result,
                         args.profile, args.frames, fused=args.fused,

@@ -1,6 +1,6 @@
 """Feature extraction: ring split, curvature, edge/planar classification.
 
-TPU-native re-design of the reference's scan registration stage
+Data-parallel re-design of the reference's scan registration stage
 (src/scanRegistration.cpp:87-428).  The whole stage is one jitted,
 static-shape program over an (n_scans, h_max) padded range image:
 

@@ -29,15 +29,14 @@ Two kernels:
     PARITY.md.
 
 Both kernels are chunked batched dense (K×K) compatibility matrices —
-matmul-shaped work that runs on the MXU, replacing the reference's O(k²)
-scalar loops (and its OpenMP pragmas) entirely.
+data-parallel tensor work replacing the reference's O(k²) scalar loops
+(and its OpenMP pragmas) entirely.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
-import jax
 import jax.numpy as jnp
 
 
@@ -80,8 +79,9 @@ def _scatter_chunks(values, valid, chunk_id, offset, n_regions: int, K: int):
 def _compat_scores(src, tgt, resolution: float):
     """(R, K, K) compatibility matrix per chunk."""
     def dists(p):
-        # elevated precision: see ops.knn.pairwise_sq_dist — bf16 cross
-        # terms at ~100 m coordinates corrupt metre-scale distances
+        # full f32 precision: see ops.knn.pairwise_sq_dist — reduced-
+        # precision cross terms at ~100 m coordinates corrupt metre-scale
+        # distances
         from light_loam_tpu import dist_precision
 
         d2 = (
@@ -95,6 +95,20 @@ def _compat_scores(src, tgt, resolution: float):
 
     gap = dists(src) - dists(tgt)
     return jnp.exp(-(gap * gap) / (resolution * resolution))
+
+
+def compat_votes(src, tgt, valid, threshold: float = 0.96,
+                 resolution: float = 1.0) -> jnp.ndarray:
+    """(R, K) incompatibility votes per chunked correspondence: the number
+    of valid partners j != i whose compatibility score is below
+    ``threshold`` (laserOdometry.cpp:228-252).  XLA fuses distance ->
+    exp -> threshold -> row-sum; the (R, K, K) scores stay in L2."""
+    K = src.shape[-2]
+    scores = _compat_scores(src, tgt, resolution)
+    eye = jnp.eye(K, dtype=bool)
+    pair_ok = (valid[..., :, None] * valid[..., None, :]) > 0
+    incompat = (scores < threshold) & pair_ok & ~eye
+    return jnp.sum(incompat.astype(jnp.float32), axis=-1)
 
 
 class VoteResult(NamedTuple):
@@ -115,16 +129,12 @@ def simple_vote(
     low_vote_count: float = 50.0,
     low_vote_weight: float = 5.0,
     high_vote_weight: float = 1.0,
-    backend: str = "auto",
 ) -> VoteResult:
     """Live-path vote (laserOdometry.cpp:165-342).
 
     src: (Q, 3) current-frame correspondence points; tgt: (Q, 3) their
     matched previous-frame anchors; valid: (Q,) active slots.
     ``chunk_capacity`` must cover Q // n_regions + n_regions.
-
-    ``backend``: "auto" uses the fused Pallas kernel on TPU and the XLA
-    path elsewhere; "xla"/"pallas" force one.
     """
     Q = src.shape[0]
     K = chunk_capacity
@@ -137,20 +147,7 @@ def simple_vote(
         in_chunk.astype(jnp.float32), in_chunk, chunk_id, offset, n_regions, K
     )
 
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if backend == "pallas":
-        from light_loam_tpu.ops.pallas_vote import compat_votes_pallas
-
-        votes_chunk = compat_votes_pallas(
-            csrc, ctgt, cval, threshold=score_threshold, resolution=resolution
-        )
-    else:
-        scores = _compat_scores(csrc, ctgt, resolution)
-        eye = jnp.eye(K, dtype=bool)[None]
-        pair_ok = (cval[:, :, None] * cval[:, None, :]) > 0
-        incompat = (scores < score_threshold) & pair_ok & ~eye
-        votes_chunk = jnp.sum(incompat.astype(jnp.float32), axis=-1)  # (R, K)
+    votes_chunk = compat_votes(csrc, ctgt, cval, score_threshold, resolution)
 
     sizes = _chunk_sizes(n_valid, base, n_regions).astype(jnp.float32)  # (R,)
     num_selected = selected_ratio * sizes
@@ -180,7 +177,6 @@ def run_vote(
     low_vote_count: float = 50.0,
     low_vote_weight: float = 5.0,
     high_vote_weight: float = 1.0,
-    backend: str = "auto",
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Dispatch to the configured vote kernel; returns (selected, weight).
 
@@ -199,7 +195,6 @@ def run_vote(
             low_vote_count=low_vote_count,
             low_vote_weight=low_vote_weight,
             high_vote_weight=high_vote_weight,
-            backend=backend,
         )
         return v.selected, v.weight
     if mode == "full":

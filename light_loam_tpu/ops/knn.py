@@ -2,10 +2,10 @@
 
 The reference uses per-frame pcl::KdTreeFLANN rebuilds plus linear scans
 that exploit the ring-sorted array order (src/laserOdometry.cpp:491-737,
-src/laserMapping.cpp:1882,1948).  On TPU the same queries are brute-force
+src/laserMapping.cpp:1882,1948).  Here the same queries are brute-force
 masked argmins over matmul-shaped distance tiles — the (Q, N) squared
-distance matrix is computed as ‖q‖² + ‖r‖² − 2·q·rᵀ on the MXU, streamed
-in chunks to bound VMEM/HBM.
+distance matrix is computed as ‖q‖² + ‖r‖² − 2·q·rᵀ, streamed in chunks
+to bound device memory.
 
 Ring-window semantics (exactly the reference's array-scan behaviour, which
 on a ring-sorted array reduces to ring-set membership):
@@ -32,16 +32,14 @@ _BIG = 1e30
 
 
 def pairwise_sq_dist(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """(Q,3),(N,3) -> (Q,N) squared distances via the MXU.
+    """(Q,3),(N,3) -> (Q,N) squared distances as a matmul.
 
-    Elevated precision is load-bearing: TPU matmuls default to bf16
-    inputs, and with coordinates up to ~100 m the cross term reaches
-    ~10⁴ m², so single-pass bf16 rounding (~0.4% relative) injects tens
-    of m² of error — larger than the 25 m² correspondence gate.  Measured
-    end-to-end: default precision makes long trajectories diverge on TPU
-    while the identical program tracks perfectly on CPU.  The tier comes
-    from LLT_MATMUL_PRECISION (highest = exact f32; high = 3-pass bf16,
-    ~2.4e-3 m² error on the cross term, still far under every gate).
+    Full f32 precision is load-bearing: with coordinates up to ~100 m the
+    cross term reaches ~10⁴ m², so a reduced-precision product (TF32 on
+    the GPU: ~5e-4 relative) injects metres² of error — above the 1 m²
+    5-NN gate.  The tier comes from LLT_MATMUL_PRECISION (highest, the
+    default, is exact f32: ~5e-3 m² at 100 m, chip_smoke.py's precision
+    phase).
     """
     from light_loam_tpu import dist_precision
 
@@ -123,7 +121,7 @@ def surf_correspondences(
     cloud, ops.voxel.compact_rows); the tile loops then visit only
     ceil(ref_count/tile) tiles.  Exact by construction: a skipped tile
     is all-masked and can never win a min.  This is the odometry-side
-    twin of the mapping 5-NN's count-aware skip (ops/pallas_knn.py) —
+    twin of the mapping 5-NN's count-aware skip (knn_tiled below) —
     the less-flat cloud runs ~40 % full at HDL-64 flagship capacity, so
     both sweep passes drop ~half their tiles."""
     Q = query_xyz.shape[0]

@@ -1,36 +1,38 @@
-"""Pallas TPU kernel for streamed k-NN: fused distance + running top-k.
+"""Fused streamed k-NN for the GPU: distance + running top-k in registers.
 
-The mapping stage's 5-NN queries (ops/knn.knn_tiled — the TPU replacement
-for nearestKSearch(5), laserMapping.cpp:1882,1948) are the scan-to-map
-hot loop: per outer iteration, Q stack points search N local-map points.
-The XLA path materializes every (Q, tile) distance block plus two
-``lax.top_k`` sorts per tile through HBM; this kernel keeps each
-distance block in VMEM and maintains the running (Q, k) best set with
-k masked-argmin extraction passes — HBM traffic drops from
-O(Q·N·passes) floats to O(3·(Q+N) in + 2·Q·k out).
+The mapping stage's 5-NN queries (ops/knn.knn_tiled, the replacement for
+nearestKSearch(5), laserMapping.cpp:1882,1948) are the scan-to-map hot
+loop: per outer iteration, Q stack points search N local-map points.
+The XLA path writes every (Q, tile) distance block, and two ``lax.top_k``
+per tile, through device memory.  This Pallas kernel (Triton route) keeps
+each (QB, T) distance block and the running (QB, k) best set in
+registers and reads only the operands: O(3·(Q+N)) floats in, 2·Q·k out.
 
-Count-aware tile skipping: both operand buffers are fixed-capacity with
-live prefixes (the local map comes from _gather_local, the query stack
-from voxel_downsample — both compact live entries to the front), and the
-kernel's cost is VPU-bound on the per-tile top-k passes, so it takes
-optional ``query_count``/``ref_count`` scalars and (a) runs the
-reference loop only over ceil(ref_count/tile) tiles, (b) skips query
-blocks past query_count outright (their outputs are written as
-+BIG/0, which downstream masks/gates already treat as "no neighbour").
-Exact by construction: a skipped tile/block contains only masked
-entries, which could never win a top-k slot anyway.  Measured
-(PROFILE_r04.json): the surf 5-NN ran 11.7 ms per outer iteration over
-the 65k-capacity local buffer holding 10.6k live points — cost scales
-with capacity, not content, without the skip.
+Design:
+  * one program per (lane, query block of QB rows); each loops over
+    T-wide reference tiles.  The reference rides as four contiguous rows
+    [x, y, z, mask] so tile loads are coalesced; the live local map
+    (~10k points, ~170 KB) stays in L2 across programs;
+  * the contraction is 3-wide, so distances are three subtract-multiply-
+    adds per pair on the CUDA cores ((q-r)·(q-r) directly, no
+    |q|²+|r|²-2q·r cancellation and no TF32 question);
+  * k extraction passes per tile, each a ``min`` and then a ``min`` over
+    ``where(d == m, col, BIG)`` (first-index argmin from min reductions
+    only), each winner inserted into the running sorted list with ties
+    going to the running side — knn_tiled's order (ascending distance,
+    lower index first);
+  * count-aware skipping: both operands are live-prefix buffers
+    (_gather_local and voxel_downsample compact live entries to the
+    front), so query blocks past ``query_count`` exit at once with the
+    all-masked answer (+BIG, 0) and the tile loop stops at
+    ceil(ref_count / T).  A tile whose nearest point is no closer than
+    every row's current k-th best skips extraction (spatial prune: both
+    operands are voxel/cell-key ordered).  Exact: a skipped block or tile
+    holds only entries that could never take a top-k slot.
 
-Layout: points ride channel-major (3, ·) so the point axis fills the
-128-wide lanes and the cross term is one MXU ``dot_general`` per tile.
-Results are exactly knn_tiled's (ascending distances, first-index
-tie-break within a tile; tiles visited in order).
-
-Like ops/pallas_vote.py, the kernel carries a custom vmap rule: the
-batch axis folds into the kernel grid (each lane has its OWN reference
-cloud — a (B, Q·) grid), so batched programs keep the fused path.
+A custom vmap rule folds a batch axis into the grid, each lane with its
+own reference cloud, so batched programs (models/batch.py) keep the
+kernel.
 """
 
 from __future__ import annotations
@@ -41,111 +43,87 @@ import jax
 import jax.numpy as jnp
 from jax.custom_batching import custom_vmap
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 _BIG = 1e30
+_BIG_I = 2**31 - 1
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _select_k(d, idx, k):
-    """k ascending (value, index) pairs from (QB, M) columns by masked
-    argmin passes — gather-free (take_along_axis does not lower in
-    Mosaic; the select-and-sum is an elementwise reduction)."""
-    QB, M = d.shape
-    col = jax.lax.broadcasted_iota(jnp.int32, (QB, M), 1)
-    vals, idxs = [], []
-    for _ in range(k):
-        j = jnp.argmin(d, axis=1).astype(jnp.int32)
-        vals.append(jnp.min(d, axis=1))
-        hit = col == j[:, None]
-        idxs.append(jnp.sum(jnp.where(hit, idx, 0), axis=1))
-        d = jnp.where(hit, _BIG, d)
-    return jnp.stack(vals, axis=1), jnp.stack(idxs, axis=1)  # (QB, k) ×2
+def _insert(best_d, best_i, v, vi):
+    """Insert (v, vi) per row into the ascending k-lists (tuples of (QB,)
+    vectors).  Strict <: an entry equal to a held one lands after it."""
+    lt = [v < b for b in best_d]
+    nd, ni = [], []
+    for p in range(len(best_d)):
+        if p == 0:
+            nd.append(jnp.where(lt[0], v, best_d[0]))
+            ni.append(jnp.where(lt[0], vi, best_i[0]))
+        else:
+            nd.append(jnp.where(lt[p], jnp.where(lt[p - 1], best_d[p - 1], v),
+                                best_d[p]))
+            ni.append(jnp.where(lt[p], jnp.where(lt[p - 1], best_i[p - 1], vi),
+                                best_i[p]))
+    return tuple(nd), tuple(ni)
 
 
-def _knn_kernel(cnt_ref, q_ref, r_ref, m_ref, out_d_ref, out_i_ref, *,
-                k, tile, n_tiles, out_pad, q_block):
-    # refs: cnt (B, 2) SMEM [query_count, ref_count] — the FULL array
-    #       (Mosaic's block rule rejects a (1, 2) block over (B, 2) for
-    #       B > 1: sublane dim must divide 8 or equal the array's), so
-    #       the kernel picks its lane's row by grid position instead
-    #       q (1, 3, QB), r (1, 3, Np), m (1, 1, Np)
-    #       out (1, QB, out_pad) f32 / i32
-    lane = pl.program_id(0)
-    q_count = cnt_ref[lane, 0]
-    r_count = cnt_ref[lane, 1]
+def _knn_kernel(cnt_ref, q_ref, r_ref, out_d_ref, out_i_ref, *,
+                k, tile, n_tiles, q_block):
+    # refs: cnt (2,) [query_count, ref_count]; q (3, QB) rows x, y, z;
+    #       r (4, Np) rows x, y, z, mask; out (QB, k) f32 / i32
+    q_count = cnt_ref[0]
+    r_count = cnt_ref[1]
     block_live = pl.program_id(1) * q_block < q_count
 
     @pl.when(jnp.logical_not(block_live))
     def _dead_block():
-        out_d_ref[0] = jnp.full(out_d_ref.shape[1:], _BIG, jnp.float32)
-        out_i_ref[0] = jnp.zeros(out_i_ref.shape[1:], jnp.int32)
+        for j in range(k):
+            out_d_ref[:, j] = jnp.full((q_block,), _BIG, jnp.float32)
+            out_i_ref[:, j] = jnp.zeros((q_block,), jnp.int32)
 
     @pl.when(block_live)
     def _live_block():
-        q = q_ref[0]                         # (3, QB)
-        QB = q.shape[1]
-        q2 = jnp.sum(q * q, axis=0)          # (QB,)
-
-        # elevated-precision MXU cross terms (see ops/knn.pairwise_sq_dist:
-        # bf16 rounding at ~100 m coordinates exceeds the 1 m² gates);
-        # Mosaic's dot lowering accepts DEFAULT/HIGHEST only, so the
-        # package "high" tier clamps to HIGHEST — the contraction dim is
-        # 3, the MXU cost is negligible either way.
-        from light_loam_tpu import dist_precision
-
-        prec = dist_precision()
-        if prec == jax.lax.Precision.HIGH:
-            prec = jax.lax.Precision.HIGHEST
+        qx, qy, qz = q_ref[0, :], q_ref[1, :], q_ref[2, :]
 
         def body(t, carry):
-            best_d, best_i = carry           # (QB, k) f32 / i32
-            r = r_ref[0, :, pl.ds(t * tile, tile)]    # (3, T)
-            m = m_ref[0, 0, pl.ds(t * tile, tile)]    # (T,)
-            r2 = jnp.sum(r * r, axis=0)                # (T,)
-            cross = jax.lax.dot_general(
-                q, r, dimension_numbers=(((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32, precision=prec,
-            )                                          # (QB, T)
-            d = jnp.maximum(q2[:, None] + r2[None, :] - 2.0 * cross, 0.0)
-            d = jnp.where(m[None, :] > 0, d, _BIG)
+            best_d, best_i = carry
+            sl = pl.ds(t * tile, tile)
+            dx = qx[:, None] - r_ref[0, sl][None, :]
+            dy = qy[:, None] - r_ref[1, sl][None, :]
+            dz = qz[:, None] - r_ref[2, sl][None, :]
+            d = dx * dx + dy * dy + dz * dz
+            d = jnp.where(r_ref[3, sl][None, :] > 0, d, _BIG)
 
-            def extract(_):
-                gcol = (jax.lax.broadcasted_iota(jnp.int32, (QB, tile), 1)
-                        + t * tile)
-                cd, ci = _select_k(d, gcol, k)         # tile's k best
-                # merge running ∪ tile candidates → new running top-k.
-                # Ties resolve to the running side (earlier tile),
-                # matching knn_tiled's strict-< update order.
-                md = jnp.concatenate([best_d, cd], axis=1)  # (QB, 2k)
-                mi = jnp.concatenate([best_i, ci], axis=1)
-                return _select_k(md, mi, k)
+            def extract(carry):
+                best_d, best_i = carry
+                col = (jax.lax.broadcasted_iota(jnp.int32, (q_block, tile), 1)
+                       + t * tile)
+                dd = d
+                for _ in range(k):
+                    m = jnp.min(dd, axis=1)
+                    j = jnp.min(jnp.where(dd == m[:, None], col, _BIG_I),
+                                axis=1)
+                    dd = jnp.where(col == j[:, None], _BIG, dd)
+                    best_d, best_i = _insert(best_d, best_i, m, j)
+                return best_d, best_i
 
-            # Spatial prune: extraction (k argmin passes over the block
-            # — the kernel's VPU cost) runs only if some row could still
-            # improve.  Both operands are cell/voxel-key-sorted, so a
-            # 256-query block and a 2048-point tile are usually far
-            # apart and min(d) >= kth-best for every row.  Exact: an
-            # element with d == kth loses the merge tie to the running
-            # side anyway, so >= can never drop a winner.
-            need = jnp.any(jnp.min(d, axis=1) < best_d[:, k - 1])
-            return jax.lax.cond(
-                need, extract, lambda _: (best_d, best_i), None)
+            # extraction only if some row can still improve; >= is exact
+            # because a tie with the k-th best loses to the held entry
+            need = jnp.max(
+                (jnp.min(d, axis=1) < best_d[k - 1]).astype(jnp.int32)) > 0
+            return jax.lax.cond(need, extract, lambda c: c, (best_d, best_i))
 
-        init = (jnp.full((QB, k), _BIG, jnp.float32),
-                jnp.zeros((QB, k), jnp.int32))
-        # live tiles only: entries past ref_count are all masked (live
-        # prefix), so their tiles cannot contribute a top-k slot
-        n_live = jnp.minimum(
-            (r_count + (tile - 1)) // tile, jnp.int32(n_tiles)
-        )
+        init = (tuple(jnp.full((q_block,), _BIG, jnp.float32)
+                      for _ in range(k)),
+                tuple(jnp.zeros((q_block,), jnp.int32) for _ in range(k)))
+        n_live = jnp.minimum((r_count + (tile - 1)) // tile, n_tiles)
         best_d, best_i = jax.lax.fori_loop(0, n_live, body, init)
-        out_d_ref[0] = jnp.pad(best_d, ((0, 0), (0, out_pad - k)),
-                               constant_values=_BIG)
-        out_i_ref[0] = jnp.pad(best_i, ((0, 0), (0, out_pad - k)))
+        for j in range(k):
+            out_d_ref[:, j] = best_d[j]
+            out_i_ref[:, j] = best_i[j]
 
 
 def _knn_impl(
@@ -161,46 +139,39 @@ def _knn_impl(
 ):
     B, Q, _ = query.shape
     N = ref.shape[1]
-    Qp = _round_up(max(Q, q_block), q_block)
-    Np = _round_up(max(N, tile), tile)
-    n_tiles = Np // tile
-    out_pad = 128  # minimum f32 lane tile; sliced to k by the caller
+    Qp = _round_up(Q, q_block)
+    Np = _round_up(N, tile)
 
     qT = jnp.moveaxis(jnp.pad(query, ((0, 0), (0, Qp - Q), (0, 0))), -1, 1)
-    rT = jnp.moveaxis(jnp.pad(ref, ((0, 0), (0, Np - N), (0, 0))), -1, 1)
-    mF = jnp.pad(mask.astype(jnp.float32), ((0, 0), (0, Np - N)))[:, None, :]
+    rT = jnp.concatenate([
+        jnp.moveaxis(jnp.pad(ref, ((0, 0), (0, Np - N), (0, 0))), -1, 1),
+        jnp.pad(mask.astype(jnp.float32), ((0, 0), (0, Np - N)))[:, None, :],
+    ], axis=1)                                                # (B, 4, Np)
 
-    kernel = partial(_knn_kernel, k=k, tile=tile, n_tiles=n_tiles,
-                     out_pad=out_pad, q_block=q_block)
-    grid = (B, Qp // q_block)
+    kernel = partial(_knn_kernel, k=k, tile=tile, n_tiles=Np // tile,
+                     q_block=q_block)
     d, idx = pl.pallas_call(
         kernel,
-        grid=grid,
+        grid=(B, Qp // q_block),
         in_specs=[
-            pl.BlockSpec((B, 2), lambda b, i: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 3, q_block), lambda b, i: (b, 0, i),
-                         memory_space=pltpu.VMEM),
-            # full reference per lane; constant index across the Q-block
-            # axis so it is fetched once per lane, not per block
-            pl.BlockSpec((1, 3, Np), lambda b, i: (b, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, Np), lambda b, i: (b, 0, 0),
-                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((None, 2), lambda b, i: (b, 0)),
+            pl.BlockSpec((None, 3, q_block), lambda b, i: (b, 0, i)),
+            pl.BlockSpec((None, 4, Np), lambda b, i: (b, 0, 0)),
         ],
         out_specs=[
-            pl.BlockSpec((1, q_block, out_pad), lambda b, i: (b, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, q_block, out_pad), lambda b, i: (b, i, 0),
-                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((None, q_block, k), lambda b, i: (b, i, 0)),
+            pl.BlockSpec((None, q_block, k), lambda b, i: (b, i, 0)),
         ],
         out_shape=[
-            jax.ShapeDtypeStruct((B, Qp, out_pad), jnp.float32),
-            jax.ShapeDtypeStruct((B, Qp, out_pad), jnp.int32),
+            jax.ShapeDtypeStruct((B, Qp, k), jnp.float32),
+            jax.ShapeDtypeStruct((B, Qp, k), jnp.int32),
         ],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
         interpret=interpret,
-    )(counts, qT, rT, mF)
-    return d[:, :Q, :k], idx[:, :Q, :k]
+        name="knn_topk",
+    )(counts, qT, rT)
+    return d[:, :Q], idx[:, :Q]
 
 
 @lru_cache(maxsize=None)
@@ -235,22 +206,27 @@ def knn_pallas(
     ref_xyz: jnp.ndarray,    # (N, 3)
     ref_mask: jnp.ndarray,   # (N,)
     k: int,
-    q_block: int = 256,
-    tile: int = 2048,
+    q_block: int = 8,
+    tile: int = 512,
     interpret: bool = False,
     query_count=None,
     ref_count=None,
 ):
     """Drop-in for ops.knn.knn_tiled: (sq_dists (Q,k) ascending,
-    indices (Q,k)), distance blocks kept in VMEM.  Under ``jax.vmap``
-    the batch axis folds into the kernel grid.
+    indices (Q,k)).  Compiles for the GPU only; ``interpret=True`` runs
+    the same kernel through the Pallas interpreter (tests).  Under
+    ``jax.vmap`` the batch axis folds into the kernel grid.
 
     ``query_count``/``ref_count`` (dynamic scalars) assert that entries
     at index >= count are masked (live-prefix buffers); the kernel then
     skips dead query blocks and dead reference tiles.  Outputs for
-    skipped query rows are (+BIG, 0) — identical to what an all-masked
-    search returns.  Omit them (None) for buffers without the prefix
-    guarantee."""
+    skipped query rows are (+BIG, 0), what an all-masked search returns.
+    Omit them (None) for buffers without the prefix guarantee."""
+    platform = jax.default_backend()
+    if not interpret and platform != "gpu":
+        raise ValueError(
+            f"knn_pallas compiles for the GPU only; the platform is "
+            f"{platform!r} (use ops.knn.knn_tiled there)")
     Q = query_xyz.shape[0]
     N = ref_xyz.shape[0]
     qc = jnp.asarray(Q if query_count is None else query_count, jnp.int32)

@@ -4,11 +4,8 @@ re-sorting the whole store.
 The map stores (models/mapping.py MapStore) hold ~131k/262k points and
 receive ~2k/8k new stack points per frame.  The original merge
 (`_merge_into_store`) concatenated store+new and re-ran the full
-voxel-dedup sort every frame — a 270k+ three-operand stable sort, the
-single most expensive op in the whole frame (PROFILE_r04.json:
-merge_surf 20.6 ms + merge_corner 6.4 ms of a ~129 ms frame).  Sorting
-is the worst primitive on TPU; this module replaces it with dense
-passes.
+voxel-dedup sort every frame — a 270k+ three-operand stable sort.
+This module replaces it with dense passes.
 
 Invariant exploited: every merge output is lex-sorted by voxel key
 (major, minor) with dead rows (key = sentinel) at the tail — that is
@@ -60,15 +57,9 @@ def searchsorted2(
     sorted (major, minor) int32 key-pair array.
 
     jnp.searchsorted cannot compare two-part keys and the pair does not
-    fit one int32 (x64 is disabled).  TPU gathers cost ~10 ns per
-    gathered ITEM, independent of item width (device A/B 2026-08-20:
-    8k scalar gather ≈ 8k 2-wide row gather ≈ 0.1-0.2 ms; wider
-    branching factors scale COST with the probe count, so (K+1)-ary
-    search loses).  The optimal shape is therefore a plain binary
-    search probing both halves of the key as ONE 2-wide row gather per
-    step — half the serial gather chain of the separate major/minor
-    probes (5.3 ms → ~2 ms of the sorted-store surf merge,
-    PROFILE_r05_map map.ms_reduce_plus_search).
+    fit one int32 (x64 is disabled).  A plain binary search probes both
+    halves of the key as ONE 2-wide row gather per step — half the
+    serial gather chain of separate major/minor probes.
     """
     n = a_major.shape[0]
     a_pair = jnp.stack([a_major, a_minor], axis=1)  # (n, 2)
@@ -200,13 +191,12 @@ def merge_sorted(
     src = jnp.clip(o - cumf, 0, n - 1)
 
     ucent = usum / jnp.maximum(ucnt, 1.0)[:, None]
-    # ONE 5-wide row gather instead of five n-item gathers: TPU gather
-    # cost is ~10 ns per gathered ITEM regardless of row width (device
-    # A/B 2026-08-20), so packing [xyz, bitcast(cell), mask] and
-    # selecting store-shift vs fresh rows through a virtual concat
-    # collapses the whole output pass to a single n-item gather.
-    # Bit-exact: the gather only moves bits; cell rides as its f32
-    # bit-pattern and is bitcast straight back.
+    # ONE 5-wide row gather instead of five n-item gathers: packing
+    # [xyz, bitcast(cell), mask] and selecting store-shift vs fresh rows
+    # through a virtual concat collapses the whole output pass to a
+    # single n-item gather.  Bit-exact: the gather only moves bits; cell
+    # rides as its f32 bit-pattern (a denormal for small ids) and is
+    # bitcast straight back (checked on the GPU by chip_smoke.py).
     pk_store = jnp.concatenate(
         [sxyz,
          lax.bitcast_convert_type(store_cell, jnp.float32)[:, None],

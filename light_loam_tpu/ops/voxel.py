@@ -1,6 +1,6 @@
 """Voxel-grid centroid downsampling with static shapes.
 
-TPU-native replacement for ``pcl::VoxelGrid`` (used by the reference for the
+Static-shape replacement for ``pcl::VoxelGrid`` (used by the reference for the
 less-flat cloud at 0.2 m leaf, src/scanRegistration.cpp:370-376, and for the
 mapping input stacks / cube cells, src/laserMapping.cpp:1814-1822,2154-2168).
 
@@ -77,11 +77,8 @@ def voxel_downsample(
     # identical order to stable-argsort(minor) followed by
     # stable-argsort(major), at half the sort passes and one less gather.
     # The sort RETURNS the sorted keys (no re-gather), and the payload
-    # rides as ONE wide-row gather: TPU gathers/scatters cost ~10 ns per
-    # ITEM independent of row width (device A/B 2026-08-20), so packing
-    # [xyz, rel, mask] collapses three n-item gathers into one.  This op
-    # vmapped over rings was the features stage's biggest rock
-    # (PROFILE_r05_feat lessflat 9.9 ms, mostly these gathers/scatters).
+    # rides as ONE wide-row gather: packing [xyz, rel, mask] collapses
+    # three n-item gathers into one.
     iota = jnp.arange(n, dtype=jnp.int32)
     major_s, minor_s, order = lax.sort(
         (major, minor, iota), num_keys=2, is_stable=True)
@@ -100,8 +97,8 @@ def voxel_downsample(
     seg = jnp.cumsum(head.astype(jnp.int32)) - 1
     seg = jnp.where(valid_s, jnp.clip(seg, 0, capacity), capacity)
 
-    # one 5-wide row scatter instead of three (cost per ITEM, not per
-    # element): columns [xyz·valid, rel·valid, valid]
+    # one 5-wide row scatter instead of three: columns
+    # [xyz·valid, rel·valid, valid]
     ones = valid_s.astype(xyz.dtype)
     acc = jnp.zeros((capacity + 1, 5), xyz.dtype).at[seg].add(
         jnp.concatenate(
@@ -223,8 +220,7 @@ def voxel_downsample_rings_runs(
     ring-slotted, uniform-stride decimated when a ring overflows — but
     rows are azimuth-ordered (still spatially ordered along the ring)
     instead of key-ordered.  Everything is cumsum / gather / elementwise:
-    no sort and no scatter, the two ops that make the exact mode the
-    most expensive feature-stage op on TPU (PROFILE_r04.json).
+    no sort and no scatter, the two ops of the exact mode.
     """
     R, H = mask.shape
     C = ring_capacity
@@ -297,7 +293,7 @@ def compact_rows(
     carry arbitrary surviving input rows (all consumers mask, and zeros
     are the safer filler).  Cost is a fraction of the sort's (one 1-word
     index scatter + one row gather instead of ~log2(N) sort passes — the
-    sort was the single-op pattern VERDICT r3 flagged ~8×/frame).
+    sort ran ~8×/frame).
 
     Returns ``(out_mask, *compacted_arrays)``; ``out_mask[i]`` is True
     for the first ``min(count, capacity)`` output rows.
@@ -305,19 +301,17 @@ def compact_rows(
     n = mask.shape[0]
     pos = jnp.cumsum(mask.astype(jnp.int32)) - 1
     tgt = jnp.where(mask & (pos < capacity), pos, capacity)
-    # scatter only the 1-word source indices, then gather rows once:
-    # a row scatter of the payload arrays lowered ~3.5× slower than the
-    # argsort it replaced on TPU (PROFILE gather_local entries), while
-    # index-scatter + gather beats both.
+    # scatter only the 1-word source indices, then gather rows once
     src = jnp.zeros((capacity + 1,), jnp.int32).at[tgt].set(
         jnp.arange(n, dtype=jnp.int32)
     )[:capacity]
     count = pos[-1] + 1
     out_mask = jnp.arange(capacity, dtype=jnp.int32) < count
 
-    # one packed wide-row gather for ALL payload arrays (TPU gather cost
-    # is per ITEM, not per element): 32-bit payloads ride as their f32
-    # bit patterns and are bitcast straight back — bit-exact.
+    # one packed wide-row gather for ALL payload arrays: 32-bit payloads
+    # ride as their f32 bit patterns (small ints are denormals) and are
+    # bitcast straight back — bit-exact (tests/test_voxel.py; on the GPU,
+    # chip_smoke.py).
     def to_cols(a):
         col = a.reshape(n, -1)
         return (lax.bitcast_convert_type(col, jnp.float32)

@@ -9,13 +9,16 @@ complementary axis — voxel-hash map sharding with psum'd Gauss-Newton,
 which DOES communicate — lives in parallel/sharded.py.
 
 Mechanism: inputs and state are placed with NamedSharding(mesh,
-P("data", ...)) on the leading (batch) dim and fed to the SAME jitted
-``batched_frame_step``; XLA propagates the sharding through the whole
-step (GSPMD), so one code path serves 1..N devices.
+P("data", ...)) on the leading (batch) dim, and the SAME batched body
+(models/batch.py) runs under ``shard_map`` over that axis: each device
+steps its own lanes, so one code path serves 1..N devices and the fused
+GPU kernels (custom calls that XLA's partitioner cannot split) run on
+local lanes only.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional, Tuple
 
 import jax
@@ -25,7 +28,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from light_loam_tpu.config import PipelineConfig
 from light_loam_tpu.models.batch import (
     BatchState,
-    batched_frame_step,
+    _batched_body,
     init_batch_state,
 )
 
@@ -67,10 +70,27 @@ def put_frames(xyz, mask, mesh: Mesh) -> Tuple[jnp.ndarray, jnp.ndarray]:
     )
 
 
+def _mesh_of(xyz) -> Mesh:
+    sharding = getattr(xyz, "sharding", None)
+    if not isinstance(sharding, NamedSharding):
+        raise ValueError(
+            "lane-sharded steps take frames placed by put_frames / "
+            "put_chunk_frames (NamedSharding over the data mesh)")
+    return sharding.mesh
+
+
+@partial(jax.jit, static_argnames=("cfg", "mesh"))
+def _lane_frame_step(state, xyz, mask, cfg, mesh):
+    return jax.shard_map(
+        partial(_batched_body, cfg=cfg), mesh=mesh,
+        in_specs=P(AXIS), out_specs=P(AXIS), check_vma=False,
+    )(state, xyz, mask)
+
+
 def sharded_batched_frame_step(state, xyz, mask, cfg: PipelineConfig):
-    """One SLAM frame for B lane-sharded sequences — the jitted
-    batched_frame_step itself; sharding rides the operands (GSPMD)."""
-    return batched_frame_step(state, xyz, mask, cfg)
+    """One SLAM frame for B lane-sharded sequences: every device steps
+    its own lanes (no collectives)."""
+    return _lane_frame_step(state, xyz, mask, cfg=cfg, mesh=_mesh_of(xyz))
 
 
 def put_chunk_frames(xyz, mask, mesh: Mesh) -> Tuple[jnp.ndarray, jnp.ndarray]:
@@ -82,12 +102,25 @@ def put_chunk_frames(xyz, mask, mesh: Mesh) -> Tuple[jnp.ndarray, jnp.ndarray]:
     )
 
 
-def sharded_batched_chunk_step(state, xyz, mask, cfg: PipelineConfig):
-    """K frames × B lane-sharded sequences per dispatch — the jitted
-    batched_chunk_step (models/batch.py) with sharding riding the
-    operands: the scan carries the lane-sharded state through K
-    iterations with zero collectives, so the pod-scale offline replay
-    pays ONE dispatch per K frames per however many devices hold lanes."""
-    from light_loam_tpu.models.batch import batched_chunk_step
+@partial(jax.jit, static_argnames=("cfg", "mesh"))
+def _lane_chunk_step(state, xyz, mask, cfg, mesh):
+    def local(state, xyz, mask):
+        def body(carry, inp):
+            carry, odo, mout = _batched_body(carry, *inp, cfg)
+            return carry, (odo.q_w, odo.t_w, mout.q_w, mout.t_w)
 
-    return batched_chunk_step(state, xyz, mask, cfg)
+        return jax.lax.scan(body, state, (xyz, mask))
+
+    return jax.shard_map(
+        local, mesh=mesh,
+        in_specs=(P(AXIS), P(None, AXIS), P(None, AXIS)),
+        out_specs=(P(AXIS), P(None, AXIS)), check_vma=False,
+    )(state, xyz, mask)
+
+
+def sharded_batched_chunk_step(state, xyz, mask, cfg: PipelineConfig):
+    """K frames × B lane-sharded sequences per dispatch: the scan of
+    models/batch.batched_chunk_step run per device on its own lanes,
+    zero collectives, ONE dispatch per K frames.  Returns (state,
+    (odom_q, odom_t, map_q, map_t)) with (K, B, …) poses."""
+    return _lane_chunk_step(state, xyz, mask, cfg=cfg, mesh=_mesh_of(xyz))

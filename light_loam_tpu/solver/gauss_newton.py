@@ -5,7 +5,7 @@ EigenQuaternionManifold + DENSE_QR, max_num_iterations=4;
 src/laserOdometry.cpp:475-482,819-826 and src/laserMapping.cpp:1864-1872,
 2080-2087).  The 6-dof normal equations are accumulated over all factors
 with one fused einsum per factor family — the per-correspondence work is
-matmul-shaped and runs on the MXU; the 6×6 solve is negligible.
+matmul-shaped; the 6×6 solve is negligible.
 
 Loss handling matches Ceres' corrector to first order: each residual block
 is scaled by sqrt(ρ'(‖r‖²)), ρ the Huber loss, and the cost reported is

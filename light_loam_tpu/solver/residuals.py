@@ -1,6 +1,6 @@
 """Batched LiDAR registration residuals with analytic SE(3) Jacobians.
 
-TPU-native replacement for the Ceres autodiff cost functors in
+Batched replacement for the Ceres autodiff cost functors in
 src/lidarFactor.hpp.  Each factor family is a struct-of-padded-arrays;
 residual functions return (r, J) where J is the Jacobian with respect to
 the 6-dim right tangent perturbation [δθ, δt]:

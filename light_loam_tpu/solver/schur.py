@@ -15,7 +15,7 @@ are eliminated:
     S δp = −g_p + Hpl Hll⁻¹ g_l
     δl = −Hll⁻¹ (g_l + Hplᵀ δp)
 
-Everything is batched einsum — the reduction is MXU work; the final dense
+Everything is batched einsum — the reduction is matmul work; the final dense
 solve is 6K×6K and negligible.  This is the reference-free capability the
 BASELINE north star adds on top of the Light-LOAM pipeline (distributed
 refinement over psum/all-gather collectives — see parallel usage in

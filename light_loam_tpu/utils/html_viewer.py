@@ -3,7 +3,7 @@
 The reference's live visualization surface is rviz (config at
 rviz_cfg/aloam_velodyne.rviz: path overlays at :82,132,189, cloud displays
 at :217,247,277) — an interactive orbit/pan/zoom 3-D view of the map
-clouds and trajectories.  A headless TPU pod has no display server, so the
+clouds and trajectories.  A headless GPU server has no display, so the
 equivalent here is an *exported* interactive viewer: one HTML file with the
 point clouds embedded as base64 float32 and ~150 lines of vanilla
 canvas-2D JavaScript (orbit = drag, pan = shift-drag, zoom = wheel, color

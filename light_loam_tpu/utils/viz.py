@@ -3,7 +3,7 @@
 The reference ships an rviz config (`rviz_cfg/aloam_velodyne.rviz`) that
 overlays GT / odometry / mapped paths and renders the cube-map clouds
 (topics cited at rviz_cfg/aloam_velodyne.rviz:82,132,189,217,247,277).
-This module is the headless TPU-world equivalent: render trajectories and
+This module is the headless equivalent: render trajectories and
 a top-down map view to PNG with matplotlib (no ROS, no display needed).
 
 Complements `utils/export.py`'s PLY writers (for real 3-D viewers).

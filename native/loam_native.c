@@ -1,6 +1,6 @@
 /* Native host runtime for light_loam_tpu.
  *
- * The reference's host-side runtime is C++ end to end; the TPU build keeps
+ * The reference's host-side runtime is C++ end to end; this build keeps
  * the compute path in XLA but implements the data path natively too:
  *
  *   - read_bin_padded: KITTI velodyne .bin (float32 x,y,z,intensity

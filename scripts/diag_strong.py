@@ -1,5 +1,5 @@
 """Strong-axis scaling diagnosis: per-stage pinned timing of the sharded
-mapping step (VERDICT r4 #1).
+mapping step.
 
 The r04 snapshot's strong axis regressed to 0.59 @ 2 dev / 0.33 @ 4 dev
 (SCALING.json) from ~1.0 earlier in the round, while the n=1 step got

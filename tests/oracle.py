@@ -2,7 +2,7 @@
 
 * scan-registration oracle: a direct, readable re-expression of
   src/scanRegistration.cpp:87-368 used as the ground truth for
-  pick-for-pick validation of the vectorized TPU kernel.  Works on
+  pick-for-pick validation of the vectorized feature kernel.  Works on
   compacted clouds like the C++ (no padding), sequential greedy selection
   included.
 

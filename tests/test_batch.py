@@ -7,8 +7,6 @@ this gates that a vmapped lane computes the same trajectory as the
 single-stream step functions it wraps — on distinct per-lane sequences,
 over several frames, through both the odometry and mapping stages."""
 
-import dataclasses
-
 import numpy as np
 import jax
 
@@ -60,11 +58,8 @@ def _lane_frames():
 def test_batched_lanes_match_single_stream():
     frames = _lane_frames()
 
-    # --- single-stream: the same step functions batched_frame_step wraps,
-    # with the backend override it applies (vote_backend='xla' resolves
-    # identically to 'auto' on CPU, pinned here so the gate is explicit)
-    odo_cfg = dataclasses.replace(CFG.odometry, vote_backend="xla")
-    map_cfg = dataclasses.replace(CFG.mapping, vote_backend="xla")
+    # --- single-stream: the same step functions batched_frame_step wraps
+    odo_cfg, map_cfg = CFG.odometry, CFG.mapping
     single_odo_t, single_map_t = [], []
     for b in range(B):
         odo_state = OdometryState.init(

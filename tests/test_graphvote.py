@@ -186,3 +186,96 @@ def test_full_graph_vote_with_padding_matches_literal():
         assert bool(sel[slot]) == (want is not None), (rank, slot)
         if want is not None:
             assert abs(score[slot] - want) < 1e-3
+
+
+def _chunks(rng, R, K, outlier=0.25, scale=20.0):
+    src = rng.uniform(-scale, scale, (R, K, 3)).astype(np.float32)
+    tgt = src + np.float32(0.3)
+    bad = rng.random((R, K)) < outlier
+    tgt = tgt + np.where(bad[..., None], rng.uniform(2, 8, (R, K, 3)),
+                         0.0).astype(np.float32)
+    valid = (rng.random((R, K)) < 0.9).astype(np.float32)
+    return src * valid[..., None], tgt * valid[..., None], valid
+
+
+def test_compat_votes_match_float64():
+    """The XLA vote against a float64 NumPy vote: f32 distances move a
+    score next to the threshold by a few 1e-3, so at most 1 % of rows
+    may differ, by one vote."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import check_votes
+
+    rng = np.random.default_rng(0)
+    src, tgt, valid = _chunks(rng, 4, 96)
+    votes = gv.compat_votes(jnp.asarray(src), jnp.asarray(tgt),
+                            jnp.asarray(valid))
+    frac, worst = check_votes(votes, src, tgt, valid)
+    assert frac <= 0.01 and worst <= 1, (frac, worst)
+    assert np.asarray(votes).max() > 0
+
+
+def test_compat_votes_empty_chunks():
+    R, K = 3, 64
+    src = np.zeros((R, K, 3), np.float32)
+    v = np.zeros((R, K), np.float32)
+    out = np.asarray(gv.compat_votes(jnp.asarray(src), jnp.asarray(src),
+                                     jnp.asarray(v)))
+    assert (out == 0).all()
+
+
+def test_simple_vote_counts_are_compat_votes():
+    """simple_vote's per-correspondence votes are compat_votes over its
+    chunk layout (R regions of chunk_capacity slots)."""
+    rng = np.random.default_rng(1)
+    n, R, K = 150, 5, 48
+    src = rng.uniform(-20, 20, (n, 3)).astype(np.float32)
+    tgt = src + np.float32(0.4)
+    bad = np.zeros(n, bool)
+    bad[::6] = True
+    tgt[bad] += rng.uniform(3, 9, (bad.sum(), 3)).astype(np.float32)
+    out = gv.simple_vote(jnp.asarray(src), jnp.asarray(tgt),
+                         jnp.ones(n, bool), n_regions=R, chunk_capacity=K)
+    # contiguous chunks of n // R (the last absorbs the remainder)
+    base = n // R
+    want = np.zeros(n, np.float32)
+    for r in range(R):
+        lo, hi = r * base, (n if r == R - 1 else (r + 1) * base)
+        cs = np.zeros((1, K, 3), np.float32)
+        ct = np.zeros((1, K, 3), np.float32)
+        cv = np.zeros((1, K), np.float32)
+        cs[0, :hi - lo], ct[0, :hi - lo], cv[0, :hi - lo] = (
+            src[lo:hi], tgt[lo:hi], 1.0)
+        want[lo:hi] = np.asarray(gv.compat_votes(
+            jnp.asarray(cs), jnp.asarray(ct), jnp.asarray(cv)))[0, :hi - lo]
+    np.testing.assert_array_equal(np.asarray(out.votes), want)
+    assert want[bad].min() > want[~bad].max()
+
+
+def test_compat_votes_vmap_matches_per_lane():
+    """Batched programs (models/batch.py) vmap the vote: per-lane results
+    must equal per-lane calls, batched or broadcast operands alike."""
+    import jax
+
+    rng = np.random.default_rng(7)
+    B = 3
+    lanes = [_chunks(rng, 4, 96) for _ in range(B)]
+    src, tgt, valid = (np.stack([lane[i] for lane in lanes])
+                       for i in range(3))
+    fn = jax.jit(gv.compat_votes)
+    batched = np.asarray(jax.vmap(fn)(jnp.asarray(src), jnp.asarray(tgt),
+                                      jnp.asarray(valid)))
+    singles = np.stack([np.asarray(fn(jnp.asarray(src[b]),
+                                      jnp.asarray(tgt[b]),
+                                      jnp.asarray(valid[b])))
+                        for b in range(B)])
+    np.testing.assert_array_equal(batched, singles)
+    batched2 = np.asarray(jax.vmap(fn, in_axes=(0, None, None))(
+        jnp.asarray(src), jnp.asarray(tgt[0]), jnp.asarray(valid[0])))
+    singles2 = np.stack([np.asarray(fn(jnp.asarray(src[b]),
+                                       jnp.asarray(tgt[0]),
+                                       jnp.asarray(valid[0])))
+                         for b in range(B)])
+    np.testing.assert_array_equal(batched2, singles2)

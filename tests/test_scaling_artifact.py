@@ -1,4 +1,4 @@
-"""Gate on the SCALING.json artifact (VERDICT r2 #4).
+"""Gate on the SCALING.json artifact.
 
 The reference has no distributed mode at all (SURVEY.md §2.7: its only
 parallelism is 3 OS processes + OpenMP); the build's scaling bar is

@@ -1,5 +1,5 @@
 """Sharded mapping must match the single-chip step on a virtual 8-device
-CPU mesh — the TPU-world 'fake backend' for distributed tests
+CPU mesh — the 'fake backend' for distributed tests
 (SURVEY.md §4)."""
 
 import numpy as np

@@ -79,7 +79,8 @@ def test_no_undefined_globals():
     files += [
         REPO / n
         for n in ("bench.py", "bench_accuracy.py", "bench_scaling.py",
-                  "__graft_entry__.py", "setup.py")
+                  "chip_smoke.py", "__graft_entry__.py", "setup.py",
+                  "scripts/ab_backends.py")
     ]
     for f in files:
         findings += _undefined_in(f)

@@ -1,4 +1,4 @@
-"""Hard synthetic accuracy gates (VERDICT r1 item 9).
+"""Hard synthetic accuracy gates.
 
 The reference's only accuracy verification is offline KITTI scoring of the
 written trajectory (SURVEY §4; laserMapping.cpp:2284-2326).  KITTI data is

@@ -1,4 +1,5 @@
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
 from light_loam_tpu.ops.voxel import voxel_downsample
@@ -243,6 +244,30 @@ def test_compact_rows_equals_stable_argsort():
         np.testing.assert_array_equal(
             np.asarray(out_vals)[:k], np.asarray(vals[order])[:k]
         )
+
+
+@pytest.mark.parametrize("n, cap", [(257, 64), (300, 512)])
+def test_compact_rows_packed_equals_single_array(n, cap):
+    """The packed multi-array path (f32, int32 and uint32 payloads riding
+    one f32 row gather) is bitwise the single-array path, denormal and
+    NaN bit patterns included."""
+    from light_loam_tpu.ops.voxel import compact_rows
+
+    rng = np.random.default_rng(12)
+    mask = jnp.asarray(rng.random(n) < 0.6)
+    xyz = rng.normal(size=(n, 3)).astype(np.float32)
+    bits = rng.integers(0, 2**32, n, dtype=np.uint32)
+    bits[:6] = [1, 0x7FFFFF, 0x7FC00000, 0xFFC00001, 0x80000001, 0xFFFFFFFF]
+    ci = bits.view(np.int32)
+    cu = np.roll(bits, 3).reshape(n, 1)  # a 2-D payload too
+    packed = compact_rows(mask, cap, jnp.asarray(xyz), jnp.asarray(ci),
+                          jnp.asarray(cu))
+    for a, got in zip((xyz, ci, cu), packed[1:]):
+        m1, want = compact_rows(mask, cap, jnp.asarray(a))
+        np.testing.assert_array_equal(np.asarray(m1), np.asarray(packed[0]))
+        assert got.dtype == a.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(np.asarray(got).view(np.uint32),
+                                      np.asarray(want).view(np.uint32))
 
 
 def test_gather_local_compact_equals_argsort_on_sorted_store():
